@@ -1,6 +1,6 @@
-"""laser_slam_tpu — a TPU-native 2D laser SLAM framework.
+"""laser_slam_tpu — a 2D laser SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference C++ stack (rising-turtle/laser_slam): polar scan matching,
 polar/point-to-line ICP, occupancy-grid mapping, pose-graph SLAM with
 loop closure, particle-filter localization, multi-sensor fusion, and a
@@ -11,39 +11,30 @@ __version__ = "0.2.0"
 
 import os as _os
 
-# Persistent XLA compilation cache: SLAM programs are large (whole-log
-# lax.scan odometry, batched loop rounds) and cold compiles run minutes;
-# warm runs must not pay that again. Opt out with LASER_SLAM_NO_CACHE=1.
-def enable_compilation_cache(cache_dir: str | None = None) -> None:
-    """Point JAX's persistent compilation cache at a laser_slam_tpu
-    directory (idempotent; respects an embedding application's own cache
-    settings by only filling options that are still unset)."""
+# Where the persistent compilation cache lives when JAX_COMPILATION_CACHE_DIR
+# is not set: a fixed path inside the checkout, because the path is part
+# of the cache key and a cache that moves never hits.
+CHECKOUT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def enable_compilation_cache() -> None:
+    """Turn on JAX's persistent compilation cache (SLAM programs are large
+    and cold compiles take tens of seconds; warm runs must not pay again).
+
+    A directory already configured -- ``JAX_COMPILATION_CACHE_DIR``, which
+    JAX reads itself, or an embedding application's own setting -- is kept
+    and no other is set; otherwise the cache goes to
+    :data:`CHECKOUT_CACHE_DIR`. JAX's own thresholds for what it caches
+    are left as they are."""
     import jax as _jax
 
-    if cache_dir is None:
-        cache_dir = _os.environ.get(
-            "LASER_SLAM_CACHE_DIR",
-            _os.path.join(
-                _os.path.expanduser("~"), ".cache", "laser_slam_tpu", "xla"
-            ),
-        )
-    try:
-        _os.makedirs(cache_dir, exist_ok=True)
-        if _jax.config.jax_compilation_cache_dir is None:
-            _jax.config.update("jax_compilation_cache_dir", cache_dir)
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0
-            )
-            _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    if not _jax.config.jax_compilation_cache_dir:
+        _jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
 
 
-# ADVICE r2: don't mutate global JAX config on import when the embedding
-# application configured its own cache; enable_compilation_cache() only
-# fills unset options, and LASER_SLAM_NO_CACHE=1 opts out entirely.
-if not _os.environ.get("LASER_SLAM_NO_CACHE"):
-    enable_compilation_cache()
+enable_compilation_cache()
 
 from .core import se2
 from .core.scan import LaserModel, Scan, LMS151, LMS211, LMS511, PRESETS

@@ -2,7 +2,7 @@
 src/Main-Ctrl/BN/BNpos.cpp): a robot-mounted receiver ranges a set of
 surveyed beacons; position comes from trilateration.
 
-TPU-native: fixed-shape masked Gauss-Newton over ``[M]`` range
+Fixed-shape masked Gauss-Newton over ``[M]`` range
 residuals, jittable and vmappable over a batch of fixes (e.g. scoring
 beacon fixes for every particle at once).
 """

@@ -84,6 +84,7 @@ def cmd_slam(args):
         print(f"trajectory -> {args.out}")
     if args.map:
         _render(log, np.asarray(res.poses), args.map, args.resolution)
+    return res
 
 
 def _render(log, poses, out, resolution):
@@ -148,16 +149,8 @@ def cmd_localize(args):
     key = jax.random.PRNGKey(0)
     state = pf.init_gaussian(key, gt[split], args.particles)
 
-    # One fused device program per tick — predict + weight + resample +
-    # estimate. Essential on remote accelerators where each dispatch
-    # pays tunnel latency.
-    @jax.jit
-    def tick(st, rel, r, v, k):
-        k1, k2 = jax.random.split(k)
-        st = pf.predict(st, rel, k1, sigma_xy=0.05, sigma_theta=0.03)
-        st = pf.update_field(st, field, grid, model, r, v)
-        st = pf.maybe_resample(st, k2)
-        return st, pf.estimate(st)
+    tick = jax.jit(lambda st, rel, r, v, k: pf.track_field(
+        st, rel, r, v, k, field, grid, model))
 
     errs = []
     for t in range(split + 1, min(split + 1 + args.steps, log.n_scans)):
@@ -353,7 +346,7 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_client)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Scan containers and laser sensor models.
 
-TPU-native replacement for the reference's ``PMScan`` struct-of-arrays and
+Batched JAX replacement for the reference's ``PMScan`` struct-of-arrays and
 ``Base_PARAM`` laser presets (src/zhpsm/PolarParameter.h:42-184). Instead
 of per-scan heap objects with ``bad[]`` flag bytes, scans are fixed-shape
 batched arrays ``[..., N]`` with boolean masks — the shapes XLA wants.
@@ -78,7 +78,7 @@ class Scan(NamedTuple):
 
     Replaces ``PMScan`` (src/zhpsm/PolarParameter.h:105-184). The
     reference's bit-flag ``bad[]`` byte array becomes a boolean mask; the
-    ``x[]``/``y[]`` caches are recomputed on demand (cheap on the VPU);
+    ``x[]``/``y[]`` caches are recomputed on demand (cheap on the device);
     ``seg[]`` keeps the same semantics (0 = singleton / no segment).
     """
 

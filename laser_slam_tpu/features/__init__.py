@@ -1,6 +1,6 @@
 """Interest-point features on 2D laser scans (FLIRT equivalent).
 
-TPU-native replacement for the reference's FLIRTLib-based feature
+Batched JAX replacement for the reference's FLIRTLib-based feature
 pipeline (src/mapGraph/FlirterNode.{h,cpp}): multiscale blob detection
 on the range curve, a polar beta-grid descriptor, symmetric-χ²
 descriptor distance, and a batched-hypothesis RANSAC SE(2) matcher.

@@ -1,6 +1,6 @@
 """Beta-grid style polar descriptors and symmetric-χ² distance.
 
-TPU-native equivalent of FLIRT's beta-grid descriptor generator and
+JAX equivalent of FLIRT's beta-grid descriptor generator and
 histogram distance (``CFliterNode::InitFliter``
 src/mapGraph/FlirterNode.cpp:563-580: BetaGridGenerator over
 ``minRho=0.02, maxRho=0.5`` with the *symmetric χ²* distance).

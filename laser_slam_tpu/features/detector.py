@@ -1,6 +1,6 @@
 """Multiscale interest-point detection on the range curve.
 
-TPU-native equivalent of the reference's FLIRT detector configuration
+JAX equivalent of the reference's FLIRT detector configuration
 (``CFliterNode::InitFliter`` src/mapGraph/FlirterNode.cpp:489-604:
 default *blob* detector over a Gaussian scale space with ``scale = 5``,
 ``baseSigma = 0.2``, ``sigmaStep = 1.4``, ``minPeak = 0.34``,
@@ -9,7 +9,7 @@ default *blob* detector over a Gaussian scale space with ``scale = 5``,
 The FLIRT blob detector finds extrema of the normalized
 difference-of-Gaussians of the range signal across bearing *and* scale.
 Here the whole scale space is one ``[S, N]`` array built by ``S`` small
-1D convolutions (VPU-friendly, fixed shape), extrema detection is a
+1D convolutions (vector-friendly, fixed shape), extrema detection is a
 3×3 neighbourhood mask, and the per-scan output is a fixed-``K``
 top-k selection with a validity mask — no ragged feature lists.
 """

@@ -1,6 +1,6 @@
 """Batched-hypothesis RANSAC SE(2) matching of two feature sets.
 
-TPU-native equivalent of FLIRT's RansacFeatureSetMatcher as used by
+JAX equivalent of FLIRT's RansacFeatureSetMatcher as used by
 ``CFliterNode::matchNodePair`` (src/mapGraph/FlirterNode.cpp:394-423,
 matcher config 575-580: acceptance χ² 0.4·0.4, success probability
 0.99, inlier probability 0.5, distance threshold 0.8) and

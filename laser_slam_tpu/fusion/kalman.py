@@ -1,6 +1,6 @@
 """Covariance (EKF) and UdU-factorized Kalman filtering.
 
-TPU-native equivalents of the remaining Bayes++ schemes vendored by the
+JAX equivalents of the remaining Bayes++ schemes vendored by the
 reference (src/sensorFusion/): the covariance filter
 (``Covariance_scheme``, covFlt.cpp), and the UdU-factorized square-root
 filter (``UD_scheme`` built on the UdU utilities in UdU.cpp — Bierman
@@ -10,7 +10,7 @@ instantiates the unscented and SIR schemes (see :mod:`.ukf` and
 part of its library surface, so it is provided here with the same
 predict/observe decomposition — as pure jit/vmap-friendly functions.
 
-Design notes (TPU-first, not a port):
+Design notes (accelerator-first, not a port):
 
 - No uBLAS-style triangular bookkeeping: the covariance filter keeps a
   dense symmetric ``[D, D]`` matrix and uses the Joseph form, which XLA

@@ -1,13 +1,13 @@
 """Landmark-SLAM filter schemes: EKF-SLAM and Rao-Blackwellized fastSLAM.
 
-TPU-native equivalents of the last two Bayes++ schemes vendored by the
+JAX equivalents of the last two Bayes++ schemes vendored by the
 reference (src/sensorFusion/kalmanSLAM.{hpp,cpp} — joint-state Kalman
 SLAM — and src/sensorFusion/fastSLAM.{hpp,cpp} — per-particle landmark
 maps). The reference never wires these into its pipelines (its mapping
 is grid/pose-graph based), but they are part of the library surface it
 ships, so the framework provides them.
 
-TPU-first design, not a port:
+Accelerator-first design, not a port:
 
 - Fixed capacity everywhere: ``L_max`` landmark slots with a validity
   mask instead of Bayes++'s dynamically grown state; unseen-landmark
@@ -16,7 +16,7 @@ TPU-first design, not a port:
 - fastSLAM is *fully vectorized*: ``[P]`` particles × ``[L]`` landmark
   EKFs live in one pytree of arrays; predict/observe/resample are
   ``vmap``/``where`` over that block — the per-particle pointer maps of
-  fastSLAM.cpp become two dense tensors the VPU chews through.
+  fastSLAM.cpp become two dense tensors the device chews through.
 - Observation model is standard range-bearing
   ``z = (‖m − p‖, atan2(m − p) − θ)``.
 """

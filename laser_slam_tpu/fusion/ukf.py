@@ -1,6 +1,6 @@
 """Unscented Kalman filtering for multi-sensor pose fusion.
 
-TPU-native replacement for the reference's vendored Bayes++ stack
+Batched JAX replacement for the reference's vendored Bayes++ stack
 (src/sensorFusion/: ``Unscented_scheme`` in unsFlt.cpp, plus the
 predict/observe models in config.hpp and the fusion loop in
 src/slam/threadFusion.cpp:89-155). The reference fuses SICK-SLAM poses,

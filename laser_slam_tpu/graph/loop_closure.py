@@ -1,6 +1,6 @@
 """Loop-closure detection: batched gating + batched verification.
 
-TPU-native redesign of the reference's serial candidate scan
+Fixed-shape JAX redesign of the reference's serial candidate scan
 (``CMapGraph::addMapNodeCov`` loops over all prior submaps,
 src/mapGraph/MapGraph.cpp:1272-1484):
 
@@ -537,8 +537,7 @@ def verify_pairs_correlative(
     compiled shape depends only on the candidate count and the
     narrow/wide point budgets — NOT on the anchor count or the laser
     beam count — so one executable serves every log, laser model, and
-    growing online session (the shape bucketing that keeps the remote
-    TPU service's multi-minute compiles one-time)."""
+    growing online session, and its compile is paid once."""
     from ..ops.correlative import (
         build_likelihood_grid_points, correlative_top_peaks,
     )

@@ -1,6 +1,6 @@
 """SE(2) pose-graph optimization: batched robust Gauss-Newton.
 
-TPU-native replacement for the reference's g2o + CHOLMOD backend
+Batched JAX replacement for the reference's g2o + CHOLMOD backend
 (``CMapGraph::optimizeGraph``, src/mapGraph/MapGraph.cpp:2362-2380, with
 edge insertion at addEdgeToG2O 2382-2425). Design:
 
@@ -10,7 +10,7 @@ edge insertion at addEdgeToG2O 2382-2425). Design:
   without dynamic shapes);
 - residuals/Jacobians for **all** edges are computed batched; the normal
   system is assembled with ``segment_sum`` scatters into a dense
-  ``[3V, 3V]`` matrix and solved by Cholesky on the MXU. The reference's
+  ``[3V, 3V]`` matrix and solved densely on the device. The reference's
   submap hierarchy keeps V small (~N/10, MapGraph.cpp:725), so the dense
   solve is both exact and fast; past ``DENSE_SOLVER_MAX_V`` vertices the
   matrix-free block-Jacobi CG path (:func:`_cg_solve_normal`) takes over
@@ -208,11 +208,11 @@ def _chol_solve_damped(g: PoseGraph, Hd: Array, b: Array, lam: Array) -> Array:
     Hd = Hd + jnp.diag(diag_fix + lam * diag_h) + floor * jnp.eye(
         3 * v, dtype=Hd.dtype
     )
-    # LU, not Cholesky: TPU's f32 Cholesky lowering NaNs on the ~1e6+
-    # condition numbers a gauge-anchored normal matrix reaches (verified
-    # on real intel-lab graphs; LU solves the same system exactly), and
-    # at submap-graph sizes the dense solve is microseconds either way.
-    # Matmul precision forced to full f32 — the TPU default truncates.
+    # LU, not Cholesky: an f32 Cholesky NaN'd on the ~1e6+ condition
+    # numbers a gauge-anchored normal matrix reaches (seen on real
+    # intel-lab graphs; LU solves the same system), and at submap-graph
+    # sizes the dense solve is small either way. Matmul precision is
+    # pinned to full f32: the default may round operands (TF32 on GPUs).
     with jax.default_matmul_precision("highest"):
         dx = jnp.linalg.solve(Hd, -b).reshape(v, 3)
     return dx
@@ -335,7 +335,7 @@ def optimize(
     is what g2o's Levenberg variant provides. Fully on-device; returns
     ``(graph, final weighted chi²)``.
 
-    ``solver``: ``"chol"`` (dense Cholesky on the MXU), ``"cg"``
+    ``solver``: ``"chol"`` (dense LU solve of the normal matrix), ``"cg"``
     (matrix-free block-Jacobi CG for large V), or ``"auto"``.
     """
     dtype = g.poses.dtype
@@ -384,7 +384,7 @@ def chi2(g: PoseGraph) -> Array:
 # Linear initialization (LAGO-style) — 2D pose graphs are special: given
 # relative-angle measurements the orientations are a *linear* problem in
 # unit-circle embeddings, and given orientations the positions are linear
-# too. Two small dense solves on the MXU produce a near-global
+# too. Two small dense solves produce a near-global
 # initialization that plain GN/LM cannot reach from drifted odometry
 # (large coordinated rotations = the classic pose-graph local minimum).
 # The reference has no equivalent — g2o is simply initialized from
@@ -435,7 +435,7 @@ def linear_initialize(g: PoseGraph) -> PoseGraph:
         # Anchor/regularization sized for f32: the gauge prior only has
         # to dominate typical edge information (~50), and the ridge only
         # to floor the near-null chain modes — a 1e4/1e-4 split pushes
-        # the condition number past what TPU f32 factorizations survive.
+        # the condition number past what f32 factorizations survive.
         lin_anchor = jnp.asarray(1e3, dtype)
         diag = jnp.zeros(2 * v, dtype).at[:2].set(lin_anchor)
         Hd = H.transpose(0, 2, 1, 3).reshape(2 * v, 2 * v)
@@ -443,7 +443,7 @@ def linear_initialize(g: PoseGraph) -> PoseGraph:
         rhs = -b.reshape(-1) + (jnp.zeros((v, 2), dtype).at[0].set(
             anchor_val * lin_anchor
         )).reshape(-1)
-        # LU at full f32 (TPU Cholesky NaNs at this conditioning).
+        # LU at full f32 (an f32 Cholesky NaN'd at this conditioning).
         with jax.default_matmul_precision("highest"):
             return jnp.linalg.solve(Hd, rhs).reshape(v, 2)
 

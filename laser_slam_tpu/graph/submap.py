@@ -1,6 +1,6 @@
 """Submap hierarchy: keyframe groups reduced to fixed-shape local clouds.
 
-TPU-native redesign of the reference's ``CMapNode`` (src/mapGraph/
+Fixed-shape JAX redesign of the reference's ``CMapNode`` (src/mapGraph/
 MapNode.{h,cpp}): a session of ~10 pose nodes is reduced into one submap
 (``reduceIntoMapNode`` MapNode.cpp:473-566, ``g_session_size``
 MapGraph.cpp:725), rasterized into a 5 cm occupancy grid

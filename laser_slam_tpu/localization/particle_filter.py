@@ -1,6 +1,6 @@
-"""Monte-Carlo localization: vmapped particle cloud on TPU.
+"""Monte-Carlo localization: vmapped particle cloud.
 
-TPU-native replacement for the reference's Bayes++ SIR particle filter
+Batched JAX replacement for the reference's Bayes++ SIR particle filter
 (``CParticles`` over ``SIR_scheme``, src/localization/particles.cpp, and
 the MRPT MCL demo src/mrptpf/). The reference evaluates 60 particles
 serially, each doing a DDA ray trace + an MRPT ICP match
@@ -188,6 +188,28 @@ def maybe_resample(state: ParticleState, key: Array) -> ParticleState:
     )
 
 
+def track_field(
+    state: ParticleState,
+    rel: Array,
+    ranges: Array,
+    valid: Array,
+    key: Array,
+    field: Array,
+    grid: OccupancyGrid,
+    model: LaserModel,
+    sigma_xy: float = 0.05,
+    sigma_theta: float = 0.03,
+) -> tuple[ParticleState, Array]:
+    """One tracking tick on a likelihood field: predict by the odometry
+    step ``rel``, weight by the scan, resample when degenerate; returns
+    ``(state, pose estimate [3])``. Jit it whole: one dispatch per tick."""
+    k1, k2 = jax.random.split(key)
+    state = predict(state, rel, k1, sigma_xy=sigma_xy, sigma_theta=sigma_theta)
+    state = update_field(state, field, grid, model, ranges, valid)
+    state = maybe_resample(state, k2)
+    return state, estimate(state)
+
+
 def estimate(state: ParticleState, top_k: int = TOP_K) -> Array:
     """Weighted mean over the top-K particles with circular angle
     averaging (particles.cpp:258-281 weightMean)."""
@@ -265,7 +287,7 @@ def global_relocalize(
 # sqrt(2/(9(k-1))) * z_{1-delta})^3 keeps the KL divergence between the
 # sampled and true posterior below eps with confidence 1-delta.
 #
-# On TPU the cloud is fixed-shape, so instead of growing/shrinking
+# On the device the cloud is fixed-shape, so instead of growing/shrinking
 # arrays the adaptive size becomes an *active-particle count*: excess
 # particles get -inf log weight and drop out of estimates, resampling,
 # and updates (their lanes still compute — fixed shapes are the point).

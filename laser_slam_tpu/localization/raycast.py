@@ -1,6 +1,6 @@
 """Batched ray-cast scan simulation against an occupancy grid.
 
-TPU-native replacement for the reference's DDA scan simulator
+Batched JAX replacement for the reference's DDA scan simulator
 (``CVPmap::laserScanSimulator`` / ``simulateScanRay``,
 src/localization/VPmap.cpp:180-300): instead of a per-beam while-loop
 walking grid cells, every beam samples the grid at a fixed ladder of

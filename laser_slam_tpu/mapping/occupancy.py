@@ -1,6 +1,6 @@
 """Occupancy-grid mapping with log-odds scatter updates.
 
-TPU-native replacement for the reference's hit/sum counting grid
+Batched JAX replacement for the reference's hit/sum counting grid
 (``CPMap::updateMap`` with Bresenham ray traversal,
 src/mapGraph/PMap.cpp:47-129, and the drawmap renderer,
 src/drawmap/drawmap.cpp:59-130). Differences by design:

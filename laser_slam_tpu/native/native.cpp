@@ -1,6 +1,6 @@
 // Native runtime support for laser_slam_tpu.
 //
-// TPU-native framework still needs a real host runtime: fast log
+// JAX framework still needs a real host runtime: fast log
 // parsing, a producer/consumer scan queue between sensor threads and
 // the device feed, a TCP scan-frame transport for the distributed
 // frontend/backend split, and the SICK CoLa-A telegram codec. The

@@ -8,7 +8,7 @@ local-map stream from the SLAM layer (LocalMapBuilder.h:6-11, the
 ``cbLocalMap`` callback in SLAM.h:19-36). The obstacle-avoidance and
 path-planning modules consume this map.
 
-TPU-native redesign: one fixed-shape ``[H, W]`` log-odds block that
+Fixed-shape redesign: one fixed-shape ``[H, W]`` log-odds block that
 *scrolls* with the robot. Re-centering is a ``jnp.roll`` plus a mask
 that blanks the revealed strip, and scan integration is the same
 two-scatter-add inverse sensor model as the global mapper — every step
@@ -142,7 +142,7 @@ def obstacle_distance_field(lmap: LocalMap, threshold: float = 0.0) -> Array:
     for. Separable two-stage transform: exact 1D distance along rows
     via doubling min-plus passes (log₂ W), then a ``fori_loop`` min
     over row offsets with squared costs — O(H) passes of static-shape
-    elementwise ops, which the VPU eats for a 128² window."""
+    elementwise ops, which XLA fuses into one pass for a 128² window."""
     import jax.lax as lax
 
     h, w = lmap.shape

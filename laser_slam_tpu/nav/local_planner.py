@@ -10,7 +10,7 @@ line toward it, lowering the target row until the line is obstacle-free
 (``MileStoneSlct``, PathPlanning.cpp:24-42, 318-448); the dodge path is
 a short waypoint list the trajectory tracker consumes.
 
-TPU-native re-design: the flood fill becomes an iterated masked-dilation
+Fixed-shape re-design: the flood fill becomes an iterated masked-dilation
 stencil (pure dense ops — the reference's explicit stack is
 data-dependent control flow XLA can't tile), the erosion a min-pool,
 and the lower-the-row search is *vectorized*: line-of-sight freeness is

@@ -1,6 +1,6 @@
 """Grid path planning as iterated stencil relaxation.
 
-TPU-native replacement for the reference robot layer's grid planner
+Batched JAX replacement for the reference robot layer's grid planner
 (src/Main-Ctrl/PathPlanning.cpp:24-42: seed-growing wavefront over an
 occupancy grid with milestone extraction). The wavefront — a chamfer
 distance-to-goal propagated around obstacles — is an iterated 3×3

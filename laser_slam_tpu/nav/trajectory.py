@@ -9,7 +9,7 @@ Trajectory.cpp:1310-1513), cubic blending between segments
 as ``CMD_SLICE_LEN`` = 0.05 s slices for the motor link
 (MainCtrl_Define.h:131-139: MAX_ACC 0.8, MAX_DEACC −0.4, MAX_SPD 0.7).
 
-TPU-idiomatic re-design: each profile is a CLOSED-FORM function of time
+XLA-idiomatic re-design: each profile is a CLOSED-FORM function of time
 sampled onto a fixed-length slice grid with a validity mask — no
 branch-per-slice loops; one jittable program covers every segment and
 the whole schedule batches under ``vmap``.

@@ -1,6 +1,6 @@
 """Free-form point-cloud ICP (trimmed, full correspondence search).
 
-TPU-native replacement for the reference's MRPT CICP wrapper
+Batched JAX replacement for the reference's MRPT CICP wrapper
 (src/zhicp/ZHIcp_Warpper.cpp: icpClassic over two float point clouds,
 100 iterations, returning pose, 3×3 covariance and a *goodness* score —
 the fraction of matched points — used to accept loop closures at
@@ -10,7 +10,7 @@ observation likelihood, VPmap.cpp:485-503).
 Unlike the bearing-banded polar ICP in :mod:`.icp` (an odometry matcher
 that assumes nearly-aligned scans), correspondences here are an
 unrestricted masked ``[N, M]`` distance matrix — for typical scan sizes
-(≤ 541²·4 B ≈ 1.2 MB/pair) this is one fused VPU kernel per iteration
+(≤ 541²·4 B ≈ 1.2 MB/pair) this is one fused kernel per iteration
 and stays batched over pairs/particles via ``vmap``. The correspondence
 distance threshold anneals from ``max_corr`` down to ``min_corr``
 (MRPT's ALFA-style threshold ramp) so distant initializations still
@@ -60,8 +60,8 @@ def match_icp_points(
     excluded). Single pair; ``vmap`` for batches.
 
     ``steps_per_nn > 1`` reuses each correspondence search (the ``[N, M]``
-    distance pass, ~85 % of the per-pair cost measured on the TPU loop-
-    verification chunk) for that many pose updates: the nearest-segment
+    distance pass, the bulk of the per-pair cost) for that many pose
+    updates: the nearest-segment
     endpoints stay fixed while the projection target, gate, trim and
     closed-form update are recomputed per step (all ``[N]``-sized). The
     total number of pose updates and the gate-decay schedule are

@@ -1,13 +1,13 @@
 """Point-to-line ICP (PL-ICP) with Gauss-Newton and covariance.
 
-TPU-native equivalent of the reference's CSM wrapper
+JAX equivalent of the reference's CSM wrapper
 (src/zhcsm/ZHCanonical_Matcher.cpp:83-157 configures Censi's ``sm_icp``
 with PL-ICP on, 10 iterations, ε = 1 mm / 1 mrad, max correspondence
 distance 2 m, adaptive outlier trimming at the 70th percentile ×2).
 
 Instead of wrapping a C library with jump-table correspondence tricks, we
 fan the banded correspondence search out as a dense ``[N, 2W]`` gather
-(the TPU-friendly shape), take the two nearest reference points to form a
+(the accelerator-friendly shape), take the two nearest reference points to form a
 line segment, and solve the linearized point-to-line least squares in
 closed form per iteration. Returns a 3×3 covariance from the Gauss-Newton
 normal matrix scaled by the residual variance (the role of Censi's
@@ -173,8 +173,9 @@ def match_plicp(
         hess=jnp.eye(3, dtype=dtype),
     )
     # Fixed-trip loop with a freeze mask instead of a data-dependent
-    # ``while_loop`` — a batched while-cond serializes the batch under
-    # ``vmap`` on TPU; frozen lanes preserve sm_icp's termination
+    # ``while_loop`` — a batched while-cond runs every lane until the
+    # slowest converges anyway, and a fixed trip count compiles to one
+    # dense batched program; frozen lanes preserve sm_icp's termination
     # (epsilon_xy/epsilon_theta, ZHCanonical_Matcher.cpp:99-101).
     def step(_, c: _Carry) -> _Carry:
         frozen = c.done | c.fail

@@ -1,6 +1,6 @@
 """Scan preprocessing: median filter, far-point tagging, segmentation.
 
-TPU-native reformulation of ``pm_preprocessScan``
+Fixed-shape JAX reformulation of ``pm_preprocessScan``
 (src/zhpsm/ZHPolar_Match.cpp:861-866) and its three stages:
 
 - ``pm_median_filter`` (1610-1639): window-5 median via a sort over a

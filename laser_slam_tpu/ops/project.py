@@ -1,6 +1,6 @@
 """Polar scan projection (resampling into another frame's bearing grid).
 
-TPU-native reformulation of ``pm_scan_project``
+Fixed-shape JAX reformulation of ``pm_scan_project``
 (src/zhpsm/ZHPolar_Match.cpp:1356-1479). The reference walks adjacent
 beam pairs and serially interpolates each pair's span of bearing bins,
 keeping the minimum range per bin (nearest surface wins) and tagging
@@ -9,8 +9,8 @@ occluded spans. Here the same computation is one dense masked
 pairs — fully parallel, fixed-shape, and batched over scan pairs via
 ``vmap``.
 
-For N ≤ 541 beams the matrix is ≤ 541×541 floats (~1.2 MB), which fits
-comfortably in VMEM; XLA fuses the construction and reduction.
+For N ≤ 541 beams the matrix is ≤ 541×541 floats (~1.2 MB); XLA fuses
+the construction and reduction.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Polar Scan Matching (PSM) as a fixed-shape JAX program.
 
-TPU-native redesign of the reference PSM matcher
+Fixed-shape JAX redesign of the reference PSM matcher
 (src/zhpsm/ZHPolar_Match.cpp): the exception-driven, per-beam serial
 iteration becomes a ``lax.while_loop`` over pure array ops with a failure
 *flag* instead of ``throw`` (ZHPolar_Match.cpp:1095, 1106, 1239), so the
@@ -212,10 +212,10 @@ def match_psm(
     )
 
     # Fixed-trip loop with a freeze mask instead of a data-dependent
-    # ``while_loop``: under ``vmap`` a batched while-cond serializes the
-    # batch on TPU (measured ~300x slower and long enough to trip the
-    # device watchdog on full-log batches); a masked ``fori_loop``
-    # compiles to one dense batched program. Converged/failed lanes keep
+    # ``while_loop``: under ``vmap`` a batched while-cond runs every lane
+    # until the slowest converges anyway and adds a per-iteration
+    # predicate reduction; a masked ``fori_loop`` with a static trip
+    # count compiles to one dense batched program. Converged/failed lanes keep
     # their carry, which is exactly the reference's early exit
     # (pm_psm stop condition, ZHPolar_Match.cpp:934-938).
     def step(_, c: _PsmCarry) -> _PsmCarry:

@@ -2,7 +2,7 @@
 
 The reference distributes SLAM across machines with a hand-rolled Qt TCP
 protocol (src/tcp_slam/serverSocket.cpp:58-116: frontends stream scan
-frames up, the backend pushes optimized poses down). The TPU-native
+frames up, the backend pushes optimized poses down). The JAX-native
 equivalent is SPMD over a ``jax.sharding.Mesh``: scan batches and graph
 edges are sharded over a ``"data"`` axis, XLA inserts the ICI collectives
 (psum/all-gather) for the reduced pose-graph solve, and "topology

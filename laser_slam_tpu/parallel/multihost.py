@@ -3,10 +3,10 @@
 The reference scales across machines with a hand-rolled TCP split
 (client frontends → server backend, src/tcp_slam/serverSocket.cpp:58-116
 — still shipped here as :mod:`..runtime.tcp_slam` for wire-level
-parity). The TPU-native way is single-controller JAX: every host runs
+parity). The JAX-native way is single-controller JAX: every host runs
 the *same* program, ``jax.distributed.initialize`` wires the processes
 into one runtime, and the global mesh spans all hosts' devices; XLA
-routes collectives over ICI within a slice and DCN across slices.
+routes the collectives over the links between them.
 
 Usage (same script on every host)::
 
@@ -17,8 +17,8 @@ Usage (same script on every host)::
     mesh = global_mesh()                    # spans all hosts' chips
     # ... shard loop-verification batches / the graph solve over it
 
-On TPU pods with standard launchers (GKE, xmanager), ``initialize()``
-with no arguments autodetects everything.
+Under a cluster launcher JAX knows (Slurm, Open MPI), ``initialize()``
+with no arguments autodetects everything; elsewhere pass all three.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def initialize(
 ) -> None:
     """Join this process into a multi-host JAX runtime (idempotent).
 
-    With no arguments, relies on the environment (TPU pod metadata /
+    With no arguments, relies on the environment (cluster launcher /
     ``JAX_COORDINATOR_ADDRESS`` etc.); explicit arguments support bare
     clusters — the role of the reference's hand-entered server IP/port
     dialog (tcp_slam main_client/main_server).

@@ -3,15 +3,15 @@
 The reference wires its 3-thread pipeline into interactive Qt widgets
 (src/ui/main.cpp:20-38 — map/point/trajectory GL views; src/ui_/ and
 src/rawseed/ add RawSeed ground-truth/odometry overlays; the
-localization UI shows the particle cloud). A TPU framework is normally
-driven headless, so the equivalent here is a matplotlib-based viewer
+localization UI shows the particle cloud). A batch accelerator job is
+normally driven headless, so the equivalent here is a matplotlib-based viewer
 that works in both modes:
 
 - **interactive**: ``LiveViewer(interactive=True)`` opens a window and
   redraws every ``update()`` (any matplotlib GUI backend);
 - **headless**: with the default Agg backend, ``update()`` renders
   off-screen; ``save_frame()``/``save_video()`` write PNGs or an
-  animated GIF — the artifact a remote TPU job ships home.
+  animated GIF — the artifact a remote accelerator job ships home.
 
 Content matches the reference UIs: occupancy map underlay, optimized
 trajectory, current pose marker, the live scan in world frame, and an

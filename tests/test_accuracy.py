@@ -13,16 +13,16 @@ Run with ``pytest -m accuracy`` (excluded from the default suite by
   degrading fr079 and mit-cscail, and nothing in the suite could see
   it) — and stays under the recorded per-log bound.
 
-This lane is **TPU-sized**: each SLAM run is ~7 min on the attached
-TPU v5e and impractically slow on the forced-CPU test mesh, so run it
-WITHOUT the conftest mesh override, e.g.::
+Each test runs full-size SLAM on a real log, which is impractically
+slow on the forced-CPU test mesh, so run the lane on a GPU, WITHOUT the
+conftest mesh override::
 
-    LASER_SLAM_ACCURACY_TPU=1 python -m pytest -m accuracy -q
+    LASER_SLAM_GPU_LANE=1 python -m pytest -m accuracy -q
 
-The latest recorded run lives in ``baselines/accuracy_lane.txt``
-(platform, date, per-test results); the recorded numbers below match
-the committed ``diag/r5_*.json`` artifacts. Bounds carry headroom over
-the recorded values to absorb run-to-run and platform noise.
+The tests skip where the real logs are absent. The recorded numbers
+below are accuracy, not speed: they were recorded on the real logs in
+round 5 (``tools/diag_slam.py``). Bounds carry headroom over the
+recorded values to absorb run-to-run and platform noise.
 """
 
 import json
@@ -41,9 +41,8 @@ pytestmark = pytest.mark.accuracy
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINES = os.path.join(REPO, "baselines", "reference.json")
 
-# Our recorded full-log ATE (RMSE, meters) at the round-5 HEAD, from the
-# committed diag artifacts (diag/r5_<log>.json, produced on the TPU by
-# tools/diag_slam.py). Regression bounds: odometry recorded*1.10, SLAM
+# Our recorded full-log ATE (RMSE, meters) at the round-5 HEAD, recorded
+# by tools/diag_slam.py. Regression bounds: odometry recorded*1.10, SLAM
 # recorded*1.35 (loop acceptance is more sensitive to platform noise).
 RECORDED_ODO_ATE = {
     "intel-lab": 8.97,
@@ -60,8 +59,8 @@ SLAM_BOUND = {
 }
 # Precision of the loop set the FINAL solve used (post PCM + residual
 # trim, promoted tentatives included; bank["used"] from
-# _solve_with_bank), classified against GT at 0.5 m — recorded from the
-# same diag artifacts. The bound carries 1.5× headroom for acceptance
+# _solve_with_bank), classified against GT at 0.5 m — recorded in the
+# same round-5 runs. The bound carries 1.5× headroom for acceptance
 # flicker on marginal pairs; a real wrong-loop flood (the r3 failure
 # mode: ATE 6.5 from drift-confirming aliases) lands far beyond it.
 RECORDED_WRONG_USED = {

@@ -9,7 +9,7 @@ from laser_slam_tpu.core.scan import LMS211
 from laser_slam_tpu.mapping.incremental import IncrementalMapper
 from laser_slam_tpu.ops.preprocess import preprocess
 
-from conftest import box_room_ranges
+from tests.conftest import box_room_ranges
 
 
 @pytest.fixture(scope="module")

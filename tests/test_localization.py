@@ -72,6 +72,25 @@ def test_field_tracking_converges(room, room_map):
     assert abs(se2.normalize_angle(jnp.asarray(est[2] - true_pose[2]))) < 0.15
 
 
+def test_track_field_tick_tracks_a_moving_robot(room, room_map):
+    """The jitted one-program tick (predict + field update + resample +
+    estimate) follows a robot across the room from its odometry steps."""
+    grid, field, _ = room_map
+    tick = jax.jit(lambda st, rel, r, v, k: pf.track_field(
+        st, rel, r, v, k, field, grid, MODEL))
+    path = np.array([[0.0, 0.0, 0.1 * t] for t in range(6)], np.float32)
+    path[:, 0] = np.linspace(0.0, 1.0, 6)
+    key = jax.random.PRNGKey(1)
+    state = pf.init_gaussian(key, jnp.asarray(path[0]), 512)
+    for t in range(1, len(path)):
+        key, k = jax.random.split(key)
+        rel = se2.relative(jnp.asarray(path[t - 1]), jnp.asarray(path[t]))
+        r = jnp.asarray(room(MODEL, tuple(path[t]), BOX))
+        state, est = tick(state, rel, r, r < MODEL.max_range, k)
+        assert np.linalg.norm(np.asarray(est)[:2] - path[t, :2]) < 0.2
+    assert state.poses.shape == (512, 3)
+
+
 def test_icp_update_weights_and_nudges(room, room_map):
     grid, _, _ = room_map
     from laser_slam_tpu.mapping.occupancy import occupied_points

@@ -3,7 +3,7 @@
 The reference proves its distribution story by actually running its TCP
 client/server split on two processes (src/tcp_slam/main_server.cpp:10-31
 binds localhost; oneThread/ folds the same classes into one process).
-The TPU-native equivalent is two OS processes joining one JAX runtime
+The JAX-native equivalent is two OS processes joining one JAX runtime
 via ``laser_slam_tpu.parallel.multihost.initialize`` and executing the
 distributed backend step across the joint 2×2-device CPU mesh.
 """

@@ -4,7 +4,7 @@ Stage 1 (--prep, CPU): build submaps/wide clouds from the saved odometry
 chain and pick candidate pairs that are TRUE revisits under GT (within
 2.5 m / any heading, gap > 20 anchors) — save everything to one npz.
 Stage 2 (default): load the npz, run verify_loops_correlative, dump the
-per-gate masks. Run once with JAX_PLATFORMS=cpu and once on TPU; diff.
+per-gate masks. Run once with JAX_PLATFORMS=cpu and once on the GPU; diff.
 """
 import argparse
 import json
